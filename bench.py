@@ -1,110 +1,58 @@
-"""Headline benchmark: one JSON line for the driver.
+"""Headline benchmark: one JSON line.
 
 Metric: benchmark05 (3D BwdTrans hex, nq=8^3) best-variant throughput in
-GDOF/s at nelmt=131072, the reference suite's flagship workload.
+GDOF/s at nelmt=131072, the reference suite's flagship workload, on the GPU.
 vs_baseline compares against the reference's best committed number for the
-same configuration: Cuda QP/Shared peak 28.91 GDOF/s on its A100-class GPU
-(BASELINE.md, benchmark05/nq8x8x8.log).
+same configuration: Cuda QP/Shared peak 28.91 GDOF/s on its own A100-class
+GPU (BASELINE.md, benchmark05/nq8x8x8.log).
 
-Prints exactly one JSON line on stdout; all diagnostics go to stderr.
+Prints exactly one JSON line on stdout; the device, its power limit and
+every variant's rate go to stderr.  Exits non-zero when JAX finds no GPU.
 """
 
 from __future__ import annotations
 
 import json
+import subprocess
 import sys
 
 BASELINE_GDOFS = 28.91  # reference b05 nq=8^3 peak (BASELINE.md)
-
-_QUEUE_PGID_FILE = "/tmp/tpu_bench_queue.pgid"
-
-
-def _ensure_solo_chip() -> None:
-    """Terminate a registered artifact-regen queue before timing.
-
-    scripts/regen_queue.sh writes its process group id to
-    /tmp/tpu_bench_queue.pgid while it owns the chip.  The headline
-    measurement must run solo, so bench kills that EXACT group (verified
-    against the process table first — never a pattern match, which could
-    hit unrelated sessions).  Interrupting a row is safe by the queue's
-    own design: it leaves only a .new file that is never committed.
-    """
-    import os
-    import signal
-    import subprocess
-    import time
-
-    try:
-        with open(_QUEUE_PGID_FILE) as f:
-            pgid = int(f.read().strip())
-    except (OSError, ValueError):
-        return
-    if pgid <= 1 or pgid == os.getpgid(0):
-        return
-    # confirm the group really is the regen queue before signalling it
-    probe = subprocess.run(
-        ["ps", "-eo", "pgid=,args="], capture_output=True, text=True)
-    group_cmds = [line.split(None, 1)[1] for line in probe.stdout.splitlines()
-                  if line.split() and line.split()[0] == str(pgid)
-                  and len(line.split(None, 1)) == 2]
-    if not any("regen_queue.sh" in c for c in group_cmds):
-        return
-    print(f"bench: stopping registered regen queue (pgid {pgid}) "
-          "so the headline runs solo", file=sys.stderr)
-    try:
-        os.killpg(pgid, signal.SIGTERM)
-    except ProcessLookupError:
-        return
-    deadline = time.time() + 30
-    while time.time() < deadline:
-        try:
-            os.killpg(pgid, 0)
-        except ProcessLookupError:
-            return
-        time.sleep(1)
-    try:
-        os.killpg(pgid, signal.SIGKILL)
-    except ProcessLookupError:
-        pass
+NELMT = 131072
 
 
 def main() -> None:
-    _ensure_solo_chip()
     import jax
 
-    from tpu_bench.core.config import Config
-    from tpu_bench.core.timing import eps_chain, measure
-    from tpu_bench.benchmarks import benchmark05 as b05
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        sys.exit(f"bench: needs a GPU, JAX found {dev.platform!r}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    print(f"bench: {dev.device_kind} x{len(jax.devices())}; "
+          f"nvidia-smi: {smi.stdout.strip()}", file=sys.stderr)
 
-    on_tpu = jax.default_backend() == "tpu"
-    nelmt = 131072 if on_tpu else 1024
+    from gpu_bench.core.config import Config
+    from gpu_bench.core.timing import eps_chain, measure
+    from gpu_bench.benchmarks import benchmark05 as b05
+
     cfg = Config(n_tests=16)
-    data = b05.prepare(8, 8, 8, nelmt, cfg)
-    jax.block_until_ready(data["in_coa"])
-
-    # the two fastest families: fused Pallas sum-factorization and the
-    # single kron GEMM; report the best
-    candidates = [v for v in b05.build_variants(data, cfg)
-                  if v[0] in ("Pallas(QP/Shared)", "Pallas(Coales)",
-                              "XLA(GEMM)")]
+    data = b05.prepare(8, 8, 8, NELMT, cfg)
     best = None
-    for label, fn, args in candidates:
-        # two independent measurement passes; keep the min time (the chained
-        # differencing has ~10% run-to-run spread on the remote link)
-        t = min(measure(fn, args, cfg, chain_fn=eps_chain(fn, eps_arg=1))
-                for _ in range(2))
-        gdofs = 1e-9 * nelmt * 343 / t
+    for label, fn, args in b05.build_variants(data, cfg):
+        t = measure(fn, args, cfg, chain_fn=eps_chain(fn, eps_arg=1))
+        gdofs = 1e-9 * NELMT * 343 / t
         print(f"{label}: {gdofs:.2f} GDOF/s", file=sys.stderr)
         if best is None or gdofs > best[1]:
             best = (label, gdofs)
+        del args
 
-    result = {
-        "metric": f"b05 3D BwdTrans nq=8^3 nelmt={nelmt} ({best[0]})",
+    print(json.dumps({
+        "metric": f"b05 3D BwdTrans nq=8^3 nelmt={NELMT} ({best[0]})",
         "value": round(best[1], 2),
         "unit": "GDOF/s",
         "vs_baseline": round(best[1] / BASELINE_GDOFS, 3),
-    }
-    print(json.dumps(result))
+    }))
 
 
 if __name__ == "__main__":

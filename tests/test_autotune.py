@@ -1,8 +1,8 @@
-"""epb autotuner: candidate generation, empirical pick, disk memoization."""
+"""Element-tile autotuner: candidates, empirical pick, disk memoization."""
 
 import json
 
-from tpu_bench.core import autotune as at
+from gpu_bench.core import autotune as at
 
 
 def test_epb_candidates():
@@ -12,19 +12,18 @@ def test_epb_candidates():
 
 
 def test_autotune_picks_and_caches(tmp_path, monkeypatch, cfg32):
-    monkeypatch.setenv("TPU_BENCH_AUTOTUNE_CACHE",
+    monkeypatch.setenv("GPU_BENCH_AUTOTUNE_CACHE",
                        str(tmp_path / "cache.json"))
     monkeypatch.setattr(at, "_CACHE", None)
 
-    from tpu_bench.benchmarks import benchmark04 as b04
+    from gpu_bench.benchmarks import benchmark04 as b04
 
     data = b04.prepare(4, 4, 256, cfg32)
     built = []
 
-    def build(epb):
-        _, fn, args = b04.build_variants(
-            data.replace(epb_kron=epb, epb_qp=epb, epb_1d=epb), cfg32)[6]
-        built.append(epb)
+    def build(te):
+        _, fn, args = b04.build_variants(data.replace(te=te), cfg32)[-1]
+        built.append(te)
         return fn, args
 
     epb = at.autotune_epb("test/kron", "nq4", build, cfg32, 256)
@@ -49,8 +48,8 @@ def test_autotune_picks_and_caches(tmp_path, monkeypatch, cfg32):
 
 
 def test_autotune_cli_flag(cfg32):
-    from tpu_bench.benchmarks import cli
-    from tpu_bench.core.config import Config
+    from gpu_bench.benchmarks import cli
+    from gpu_bench.core.config import Config
 
     args = cli.build_parser("b04", positionals=[("nq0", 8), ("nq1", 8)]
                             ).parse_args(["--autotune"])
@@ -60,7 +59,7 @@ def test_autotune_cli_flag(cfg32):
 
 
 def test_step_flag():
-    from tpu_bench.benchmarks import cli
+    from gpu_bench.benchmarks import cli
 
     args = cli.build_parser("b01").parse_args(["--step", "8",
                                                "--min-size", "1024",

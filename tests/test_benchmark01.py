@@ -6,27 +6,16 @@ import math
 import numpy as np
 import pytest
 
-from tpu_bench.benchmarks import benchmark01 as b01
-from tpu_bench.ops import initdata
-from tpu_bench.utils import native
+from gpu_bench.benchmarks import benchmark01 as b01
+from gpu_bench.ops import initdata
+from gpu_bench.utils import native
 
 # sqrt(sum x^2) values from /root/reference/benchmark01/outfile.log:5,9
 GOLDEN_NORMS = {1024: 231.3925755, 2048: 327.7035849, 4096: 464.5263377}
 
 
 def _data(size, cfg):
-    """Operand mapping incl. the f64 df2 pair key (kernels/df2stream.py)."""
-    from tpu_bench.kernels import df2stream as df2s
-
-    x = initdata.device_x(size, cfg.dtype)
-    return {"x": x, "x2": df2s.split_pair(x)}
-
-
-def _scalar(out):
-    """Variant output -> sumsq float (df2 pairs combine in host f64)."""
-    if isinstance(out, (tuple, list)):
-        return sum(float(v) for v in out)
-    return float(out)
+    return {"x": initdata.device_x(size, cfg.dtype)}
 
 
 @pytest.mark.parametrize("size", [1024, 4096])
@@ -34,7 +23,7 @@ def test_variants_match_oracle(size, cfg64):
     x_host = native.init_mod13(size)
     expected = float(np.sqrt(np.sum(x_host * x_host)))
     for label, fn, args in b01.build_variants(_data(size, cfg64), cfg64):
-        got = math.sqrt(_scalar(fn(*args)))
+        got = math.sqrt(float(fn(*args)))
         assert got == pytest.approx(expected, rel=1e-12), label
 
 
@@ -62,7 +51,7 @@ def test_labels_match_specs(cfg32):
 
 def test_chained_timing_protocol(cfg32):
     """The chained timer must produce a sane positive per-application time."""
-    from tpu_bench.core.timing import build_chain, time_chained
+    from gpu_bench.core.timing import build_chain, time_chained
 
     import jax.numpy as jnp
 
@@ -78,9 +67,8 @@ def test_chained_timing_protocol(cfg32):
 
 def test_per_from_window_never_fabricates_throughput():
     """A noise-inverted window (best_hi < best_lo) must fall back to the
-    conservative whole-chain bound, never a 1e-12 clamp (the committed b02
-    98 PB/s row this guards against)."""
-    from tpu_bench.core.timing import _per_from_window
+    conservative whole-chain bound, never a 1e-12 clamp."""
+    from gpu_bench.core.timing import _per_from_window
 
     # healthy window: plain differencing
     assert _per_from_window(0.9, 0.1, 512, 64) == pytest.approx(0.8 / 448)

@@ -8,11 +8,11 @@ computed after the 40 timed accumulating reps (benchmark02/benchmark02.cc:
 import numpy as np
 import pytest
 
-from tpu_bench.benchmarks import benchmark02 as b02
-from tpu_bench.core.variants import Layouts
-from tpu_bench.core.validate import l2norm
-from tpu_bench.ops import initdata
-from tpu_bench.utils import native
+from gpu_bench.benchmarks import benchmark02 as b02
+from gpu_bench.core.variants import Layouts
+from gpu_bench.core.validate import l2norm
+from gpu_bench.ops import initdata
+from gpu_bench.utils import native
 
 
 # ||x0 + 40 y|| from /root/reference/benchmark02/outfile.log:5,8
@@ -20,23 +20,9 @@ GOLDEN_NORMS = {1024: 5979.883197, 2048: 8481.399219}
 
 
 def _data(size, cfg):
-    from tpu_bench.kernels import df2stream as df2s
-
-    y = initdata.device_y(size, cfg.dtype)
     return Layouts(
-        base={"y": y},
-        derived={"x": lambda: initdata.device_x(size, cfg.dtype),
-                 "x2": lambda: df2s.split_pair(
-                     initdata.device_x(size, cfg.dtype)),
-                 "y2": lambda: df2s.split_pair(y)})
-
-
-def _norm(x_final):
-    from tpu_bench.kernels import df2stream as df2s
-
-    if isinstance(x_final, (tuple, list)):
-        return df2s.pair_sumsq_norm(x_final)
-    return l2norm(x_final)
+        base={"y": initdata.device_y(size, cfg.dtype)},
+        derived={"x": lambda: initdata.device_x(size, cfg.dtype)})
 
 
 @pytest.mark.parametrize("size", [1024, 4096])
@@ -48,7 +34,7 @@ def test_variants_accumulate(size, cfg64):
     data = _data(size, cfg64)
     for label, fn, keys in b02.variant_specs(data, cfg64):
         _, x_final = b02._time_accumulating(fn, cfg64, data, *keys)
-        assert _norm(x_final) == pytest.approx(expected, rel=1e-12), label
+        assert l2norm(x_final) == pytest.approx(expected, rel=1e-12), label
 
 
 @pytest.mark.parametrize("size,norm", sorted(GOLDEN_NORMS.items()))
@@ -57,7 +43,7 @@ def test_golden_norms(size, norm, cfg64):
     data = _data(size, cfg64)
     _, fn, keys = b02.variant_specs(data, cfg64)[1]
     _, x_final = b02._time_accumulating(fn, cfg64, data, *keys)
-    assert _norm(x_final) == pytest.approx(norm, rel=1e-9)
+    assert l2norm(x_final) == pytest.approx(norm, rel=1e-9)
 
 
 def test_labels_match_specs(cfg32):

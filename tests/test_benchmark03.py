@@ -4,10 +4,10 @@ norms (benchmark03/outfile.log)."""
 import numpy as np
 import pytest
 
-from tpu_bench.benchmarks import benchmark03 as b03
-from tpu_bench.core.validate import l2norm
-from tpu_bench.ops import initdata
-from tpu_bench.utils import native
+from gpu_bench.benchmarks import benchmark03 as b03
+from gpu_bench.core.validate import l2norm
+from gpu_bench.ops import initdata
+from gpu_bench.utils import native
 
 # ||A.x|| from /root/reference/benchmark03/outfile.log:5,8
 GOLDEN_NORMS = {128: 1053.208334, 256: 3026.150384, 512: 8521.062683}
@@ -16,23 +16,13 @@ GOLDEN_NORMS = {128: 1053.208334, 256: 3026.150384, 512: 8521.062683}
 def _data(size, dtype):
     import jax.numpy as jnp
 
-    from tpu_bench.kernels import df2stream as df2s
-
     a = initdata.host_matrix_sin1((size, size), dtype)
-    a_t = jnp.asarray(a.T)
     x = initdata.host_x_linear(size, dtype)
-    d = {"a_rm": a, "a_cm": a_t, "x": x}
-    if jnp.dtype(dtype) == jnp.float64:
-        d.update(a2_rm=df2s.split_pair(a), a2_cm=df2s.split_pair(a_t),
-                 x2=df2s.split_pair(x))
-    return d
+    return {"a_rm": a, "a_cm": jnp.asarray(a.T), "x": x}
 
 
 def _as_f64(y):
-    """Variant output -> f64 vector (df2 pairs recombine in NumPy f64)."""
-    if isinstance(y, (tuple, list)):
-        return np.asarray(y[0], np.float64) + np.asarray(y[1], np.float64)
-    return np.asarray(y)
+    return np.asarray(y, np.float64)
 
 
 @pytest.mark.parametrize("size", [128, 256])

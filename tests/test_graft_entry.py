@@ -1,4 +1,4 @@
-"""Driver contract: entry() compile-checks single-chip, dryrun_multichip
+"""Entry contract: entry() compile-checks one device, dryrun_multichip
 runs the sharded step on the 8-device virtual CPU mesh."""
 
 import sys
@@ -15,7 +15,7 @@ def test_entry_compiles():
     fn, args = ge.entry()
     out = jax.jit(fn)(*args)
     jax.block_until_ready(out)
-    assert out.shape[0] == 8  # i-major output: nq0 leading planes for nq=8
+    assert out.shape == (8 ** 3, 512)  # (nqTot, E) coalesced output
 
 
 def test_dryrun_multichip():

@@ -8,7 +8,7 @@ import os
 import subprocess
 import sys
 
-from tpu_bench.core.reporting import Reporter
+from gpu_bench.core.reporting import Reporter
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -47,7 +47,7 @@ def test_postprocess_runs(tmp_path):
 
 
 # ---- the SURVEY §5.5 north-star: the reference's OWN postprocess scripts,
-# copied verbatim, must turn our committed logs into plots -----------------
+# copied verbatim, must turn our logs into plots ----------------------------
 
 import shutil
 
@@ -56,26 +56,32 @@ import pytest
 REFERENCE = "/root/reference"
 
 _REF_CASES = [
-    # (reference script, committed repo log, expected png stem)
-    ("benchmark01/postprocess.py", "artifacts/b01/outfile.log", "outfile"),
-    ("benchmark02/postprocess.py", "artifacts/b02/outfile.log", "outfile"),
-    ("benchmark03/postprocess.py", "artifacts/b03/outfile.log", "outfile"),
-    ("benchmark04/postprocess.py", "artifacts/b04/nq8x8.log", "nq8x8"),
-    ("benchmark05/postprocess.py", "artifacts/b05/nq8x8x8.log", "nq8x8x8"),
+    # (reference script, log selector prefix, unit, expected png stem)
+    ("benchmark01/postprocess.py", "Size", "GB/s", "outfile"),
+    ("benchmark02/postprocess.py", "Size", "GB/s", "outfile"),
+    ("benchmark03/postprocess.py", "Size", "GB/s", "outfile"),
+    ("benchmark04/postprocess.py", "nelmt", "DOF/s", "nq8x8"),
+    ("benchmark05/postprocess.py", "nelmt", "DOF/s", "nq8x8x8"),
 ]
 
 
 @pytest.mark.skipif(not os.path.isdir(REFERENCE),
                     reason="reference checkout not present")
-@pytest.mark.parametrize("script,log,stem", _REF_CASES)
-def test_reference_postprocess_unchanged(tmp_path, script, log, stem):
-    """Copy the reference's postprocess.py VERBATIM next to a committed repo
-    log and run it: a .png must appear.  This is the byte-compatibility
-    contract SURVEY.md §5.5 names as the north-star ('so the five
-    postprocess.py scripts run unchanged'; reference parsing contract at
-    benchmark04/postprocess.py:10-27)."""
+@pytest.mark.parametrize("script,prefix,unit,stem", _REF_CASES)
+def test_reference_postprocess_unchanged(tmp_path, script, prefix, unit,
+                                         stem):
+    """Copy the reference's postprocess.py VERBATIM next to a log written
+    by our Reporter and run it: a .png must appear.  This is the
+    byte-compatibility contract SURVEY.md §5.5 names as the north-star
+    ('so the five postprocess.py scripts run unchanged'; reference parsing
+    contract at benchmark04/postprocess.py:10-27)."""
     shutil.copy(os.path.join(REFERENCE, script), tmp_path / "postprocess.py")
-    shutil.copy(os.path.join(REPO, log), tmp_path / (stem + ".log"))
+    with open(tmp_path / (stem + ".log"), "w") as f:
+        rep = Reporter("Benchmark", stream=f)
+        rep.sweep_title("BwdTrans (NQ = 8, 8)")
+        for size in (1024, 2048, 4096):
+            rep.emit(prefix, size, ["XLA", "Pallas"], [1.0, 1.0],
+                     [size * 0.001, size * 0.0012], unit)
     env = dict(os.environ, MPLBACKEND="Agg", JAX_PLATFORMS="cpu")
     r = subprocess.run([sys.executable, "postprocess.py"], cwd=tmp_path,
                        capture_output=True, text=True, timeout=180, env=env)

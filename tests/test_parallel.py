@@ -7,10 +7,9 @@ import jax
 import numpy as np
 import pytest
 
-from tpu_bench.benchmarks import benchmark05 as b05
-from tpu_bench.core.validate import l2norm
-from tpu_bench.ops import bwdtrans
-from tpu_bench.parallel import mesh as pmesh
+from gpu_bench.benchmarks import benchmark05 as b05
+from gpu_bench.ops import bwdtrans
+from gpu_bench.parallel import mesh as pmesh
 
 
 @pytest.fixture
@@ -31,43 +30,23 @@ def test_sharded_kron_matches(data):
 
 
 def test_sharded_pallas_elementwise(data, cfg64):
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    from tpu_bench.kernels import bwdtrans3d as pl_bt
+    from gpu_bench.kernels import bwdtrans as pl_bt
 
     m = pmesh.make_mesh(tp=1)  # pure dp over 8 devices
-    fn = functools.partial(pl_bt.qp_shared3d, epb=64, interpret=True)
-    make = pmesh.sharded_elementwise_apply(m, fn)
-    step = make(data["in_pcoa3"], data["b0"], data["c12t"])
-    out, norm_sq = step(data["in_pcoa3"], data["b0"], data["c12t"])
+    fn = functools.partial(pl_bt.sum_factorization, te=16, interpret=True)
+    args = (data["in_coa"], data["b0"], data["b1"], data["b2"])
+    step = pmesh.sharded_elementwise_apply(m, fn)(*args)
+    out, norm_sq = step(*args)
     ref_norm = float(np.linalg.norm(bwdtrans.reference3d(data["basis"], 512)))
     assert float(np.sqrt(norm_sq[0])) == pytest.approx(ref_norm, rel=1e-10)
-
-
-def test_sharded_qp3d_dp_tp(cfg64):
-    """(dp, tp)-sharded fused QP kernel at nq=8: the contraction axis
-    (nrq=49, zero-padded to 50) sliced over tp=2 with a psum epilogue must
-    reproduce the single-device reference output exactly."""
-    data = b05.prepare(8, 8, 8, 256, cfg64)
-    m = pmesh.make_mesh()  # (dp=4, tp=2)
-    step = pmesh.sharded_qp3d_apply(m, epb=32, interpret=True)
-    args = pmesh.shard_qp3d_inputs(m, data["in_pcoa3"], data["b0"],
-                                   data["c12t"])
-    out, norm_sq = step(*args)
-    ref = bwdtrans.reference3d(data["basis"], data["e_pad"])
-    ref_norm = float(np.linalg.norm(ref))
-    assert float(np.sqrt(norm_sq[0])) == pytest.approx(ref_norm, rel=1e-10)
-    # padded contraction must be exact, not just norm-close; kernel output
-    # is (nq0, nq2*nq1, e) -> reference layout (e, nq2, nq1, nq0)
-    got = np.asarray(out).transpose(2, 1, 0).reshape(ref.shape)
-    np.testing.assert_allclose(got, ref, rtol=1e-10, atol=1e-12)
 
 
 def test_stream_dp_8dev(cfg32):
     """dp streaming benchmarks (b01 reduce / b02 add) over the virtual mesh:
     global norms must match the single-stream formulas."""
-    from tpu_bench.core.reporting import Reporter
-    from tpu_bench.ops import initdata
-    from tpu_bench.parallel import benchmark_stream
+    from gpu_bench.core.reporting import Reporter
+    from gpu_bench.ops import initdata
+    from gpu_bench.parallel import benchmark_stream
 
     lines = []
     rep = Reporter.__new__(Reporter)
@@ -77,14 +56,14 @@ def test_stream_dp_8dev(cfg32):
 
     benchmark_stream.run01(1024, cfg32, rep)
     _, size, _, norms, values, _ = lines[-1]
-    x = np.asarray(initdata.device_x(size, cfg32.dtype, pad_to=1024))
+    x = np.asarray(initdata.device_x(size, cfg32.dtype))
     assert norms[0] == pytest.approx(float(np.linalg.norm(x)), rel=1e-5)
     assert values[0] > 0
 
     benchmark_stream.run02(1024, cfg32, rep)
     _, size, _, norms, values, _ = lines[-1]
-    x = np.asarray(initdata.device_x(size, cfg32.dtype, pad_to=1024))
-    y = np.asarray(initdata.device_y(size, cfg32.dtype, pad_to=1024))
+    x = np.asarray(initdata.device_x(size, cfg32.dtype))
+    y = np.asarray(initdata.device_y(size, cfg32.dtype))
     assert norms[0] == pytest.approx(float(np.linalg.norm(x + y)), rel=1e-5)
 
 
@@ -93,9 +72,9 @@ def test_benchmark_dp_8dev(cfg32):
     the element count by the device count, and validates the global norm."""
     import numpy as np
 
-    from tpu_bench.core.reporting import Reporter
-    from tpu_bench.ops import bwdtrans
-    from tpu_bench.parallel import benchmark_dp
+    from gpu_bench.core.reporting import Reporter
+    from gpu_bench.ops import bwdtrans
+    from gpu_bench.parallel import benchmark_dp
 
     lines = []
     rep = Reporter.__new__(Reporter)
@@ -106,16 +85,10 @@ def test_benchmark_dp_8dev(cfg32):
     gdofs = benchmark_dp.run(4, 64, cfg32, rep)
     assert gdofs > 0
     prefix, nelmt, labels, norms, values, unit = lines[-1]
-    # the per-device slab is rounded up to the 128-lane tile so e_pad stays
+    # the per-device slab is rounded up to 128 elements so e_pad stays
     # divisible by 128 * n_dev for any device count
     assert nelmt == 128 * 8
     want = float(np.linalg.norm(bwdtrans.reference3d(
         bwdtrans.make_basis3d(4, 4, 4, cfg32.dtype), nelmt)))
     assert norms[0] == pytest.approx(want, rel=1e-4)
-
-    # (dp=4, tp=2): same norm through the tp-sliced contraction + psum
-    gdofs_tp = benchmark_dp.run(4, 64, cfg32, rep, tp=2)
-    assert gdofs_tp > 0
-    _, nelmt_tp, labels_tp, norms_tp, _, _ = lines[-1]
-    assert labels_tp == ["dp4tp2x128"]
-    assert norms_tp[0] == pytest.approx(want, rel=1e-4)
+    assert labels == ["dp8x128"]

@@ -1,4 +1,4 @@
-"""Large-sweep residency machinery (VERDICT r2 missing #1): lazy per-layout
+"""Large-sweep residency machinery: lazy per-layout
 stream sources, XLA-tier element chunking, and the scalar-carry timing chain
 must all be exactly value-preserving."""
 
@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_bench.baselines import bwdtrans2d as xla2d
-from tpu_bench.baselines import bwdtrans3d as xla3d
-from tpu_bench.core import timing
-from tpu_bench.ops import bwdtrans
+from gpu_bench.baselines import bwdtrans2d as xla2d
+from gpu_bench.baselines import bwdtrans3d as xla3d
+from gpu_bench.core import timing
+from gpu_bench.ops import bwdtrans
 
 
 def test_stream_sources_match_make_inputs_2d():
@@ -22,11 +22,8 @@ def test_stream_sources_match_make_inputs_2d():
         (basis.nm1, basis.nm0), nelmt, e_pad, jnp.float32)
     np.testing.assert_array_equal(np.asarray(src["em2"]()), np.asarray(in_em2))
     np.testing.assert_array_equal(np.asarray(src["coa"]()), np.asarray(in_coa))
-    want_pcoa = np.asarray(in_coa).reshape(
-        basis.nm1, basis.nm0, e_pad).transpose(1, 0, 2)
-    np.testing.assert_array_equal(np.asarray(src["pcoa3"]()), want_pcoa)
-    want_blk = np.asarray(bwdtrans.blocked_coa(in_coa, 128))
-    np.testing.assert_array_equal(np.asarray(src["blk"](128)), want_blk)
+    # padding elements beyond nelmt are zero in both layouts
+    assert not np.asarray(src["coa"]())[:, nelmt:].any()
 
 
 def test_stream_sources_match_make_inputs_3d():
@@ -38,9 +35,7 @@ def test_stream_sources_match_make_inputs_3d():
         (basis.nm2, basis.nm1, basis.nm0), nelmt, e_pad, jnp.float32)
     np.testing.assert_array_equal(np.asarray(src["em2"]()), np.asarray(in_em2))
     np.testing.assert_array_equal(np.asarray(src["coa"]()), np.asarray(in_coa))
-    want_pcoa = np.asarray(in_coa).reshape(
-        basis.nm2 * basis.nm1, basis.nm0, e_pad).transpose(1, 0, 2)
-    np.testing.assert_array_equal(np.asarray(src["pcoa3"]()), want_pcoa)
+    assert sorted(src) == ["coa", "em2"]
 
 
 @pytest.mark.parametrize("axis", [0, -1])
@@ -66,7 +61,7 @@ def test_chunk_elems_3d_gemm_kron():
     basis = bwdtrans.make_basis3d(3, 3, 3, jnp.float32)
     e = 256
     _, in_coa = bwdtrans.make_inputs3d(basis, e, e, jnp.float32)
-    c_em3 = bwdtrans.operators3d(basis)[0]
+    c_em3 = bwdtrans.operator3d(basis)
     c_coa3 = jnp.asarray(c_em3.T)
     want = xla3d.gemm_kron(in_coa, c_coa3)
     got = xla2d.chunk_elems(xla3d.gemm_kron, 64, -1)(in_coa, c_coa3)

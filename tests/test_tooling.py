@@ -1,28 +1,11 @@
-"""Round-2 tooling: honest-timing options, lazy Layouts, README table."""
-
-import os
-import sys
+"""Harness tooling: lazy Layouts and the chained-timing witness."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_bench.core import timing
-from tpu_bench.ops import bwdtrans
-
-
-def test_honest_options_off_tpu(cfg32):
-    # CPU test runs: no TPU backend -> no compiler options (chained mode
-    # off-TPU has no VMEM to starve)
-    assert timing.honest_options(cfg32) is None
-    assert timing.honest_options(None) is None
-
-
-def test_honest_options_respects_optout(cfg32):
-    import dataclasses
-
-    cfg = dataclasses.replace(cfg32, hbm_honest=False)
-    assert timing.honest_options(cfg) is None
+from gpu_bench.core import timing
+from gpu_bench.ops import bwdtrans
 
 
 def test_layouts_lazy_and_replace():
@@ -44,234 +27,13 @@ def test_layouts_lazy_and_replace():
     assert "d" in lay2
 
 
-def test_readme_table_parses_committed_logs():
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
-                                    "scripts"))
-    import readme_table
-
-    root = os.path.join(os.path.dirname(__file__), "..")
-    rows = readme_table.parse_log(
-        os.path.join(root, "artifacts/b01/outfile.log"))
-    assert rows and all(len(r[1]) == len(r[2]) == 5 for r in rows)
-    v, lab, size = readme_table.peak(
-        os.path.join(root, "artifacts/b05/nq8x8x8.log"))
-    assert v > 0 and size > 0 and lab
-
-
-def test_readme_table_in_sync_with_artifacts():
-    """README's generated performance table must match the committed logs
-    (scripts/readme_table.py --check semantics) so it cannot drift."""
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
-                                    "scripts"))
-    import readme_table
-
-    root = os.path.join(os.path.dirname(__file__), "..")
-    if not os.path.exists(os.path.join(root, "artifacts", "b01",
-                                       "outfile.log")):
-        pytest.skip("no committed artifacts")
-    table = readme_table.build_table(os.path.join(root, "artifacts"))
-    readme = open(os.path.join(root, "README.md")).read()
-    start = readme.index(readme_table.START) + len(readme_table.START)
-    end = readme.index(readme_table.END)
-    assert readme[start:end].strip() == table.strip(), (
-        "README table stale — run scripts/readme_table.py")
-
-
-def test_tier_table_lists_committed_tier_logs():
-    """The README tier section is derived from whatever tier logs exist:
-    every committed non-f32 log must appear exactly once."""
-    import glob
-
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
-                                    "scripts"))
-    import readme_table
-
-    root = os.path.join(os.path.dirname(__file__), "..")
-    artdir = os.path.join(root, "artifacts")
-    n_logs = sum(len(glob.glob(os.path.join(artdir, t, "*", "*.log")))
-                 for t in ("bf16", "high", "f64"))
-    if not n_logs:
-        pytest.skip("no committed tier logs")
-    rows = readme_table.tier_table(artdir)
-    assert len(rows) == n_logs + 2  # header + separator
-    assert all(r.startswith("|") for r in rows)
-
-
-def test_roofline_docstring_constants_match_ceilings_artifact():
-    """Hand-quoted measured bandwidths rot when the ceilings artifact is
-    re-measured (happened rounds 2 AND 3 — VERDICT r3 weak #6).  Assert the
-    two figures quoted in core/roofline.py's docstring track the committed
-    artifact within 2%."""
-    import json
-    import re
-
-    from tpu_bench.core import roofline
-
-    root = os.path.join(os.path.dirname(__file__), "..")
-    path = os.path.join(root, "artifacts", "ceilings", "ceilings.log")
-    if not os.path.exists(path):
-        pytest.skip("no committed ceilings artifact")
-    bw = None
-    with open(path) as f:
-        for line in f:
-            if line.startswith("{"):
-                bw = json.loads(line)
-    assert bw, "ceilings.log has no JSON summary line"
-    m = re.search(r"([\d.]+) GB/s read-only, ([\d.]+) GB/s write-only",
-                  roofline.__doc__)
-    assert m, "roofline docstring no longer quotes the directional rates"
-    for quoted, key in ((float(m.group(1)), "read"),
-                        (float(m.group(2)), "write")):
-        assert quoted == pytest.approx(bw[key], rel=0.02), (
-            f"roofline.py docstring quotes {quoted} for {key!r} but the "
-            f"committed ceilings artifact measures {bw[key]:.1f} — update "
-            f"the docstring")
-
-
 def test_witness_sumsq_matches_l2norm():
-    from tpu_bench.core.validate import l2norm
+    from gpu_bench.core.validate import l2norm
 
     x = jnp.asarray(np.random.default_rng(0).normal(size=(3, 1 << 17)),
                     dtype=jnp.float32)
     w = float(timing._witness_sumsq(x))
     assert np.sqrt(w) == pytest.approx(l2norm(x), rel=1e-6)
-    # tuple outputs use the first element (pallas multi-output kernels)
+    # tuple outputs use the first element (multi-output variants)
     w2 = float(timing._witness_sumsq((x, None)))
     assert w2 == pytest.approx(w)
-
-
-def test_repair_rows_splice(tmp_path):
-    """scripts/repair_rows.py log surgery: the stale triple is replaced in
-    place, everything else byte-identical."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "repair_rows",
-        os.path.join(os.path.dirname(__file__), "..", "scripts",
-                     "repair_rows.py"))
-    rr = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(rr)
-
-    log = tmp_path / "outfile.log"
-    log.write_text(
-        "header\n"
-        "Size 1024 Case: A B\n"
-        "Size 1024 norm: 1 1\n"
-        "Size 1024 GB/s: 10 20\n"
-        "Size 2048 Case: A B\n"
-        "Size 2048 norm: 2 2\n"
-        "Size 2048 GB/s: 999 20\n"
-        "Size 4096 Case: A B\n"
-        "Size 4096 norm: 3 3\n"
-        "Size 4096 GB/s: 30 40\n")
-    fresh = ["Size 2048 Case: A B", "Size 2048 norm: 2 2",
-             "Size 2048 GB/s: 25 20", "noise line"]
-    rr.splice(str(log), 2048, fresh)
-    text = log.read_text()
-    assert "999" not in text
-    assert "Size 2048 GB/s: 25 20" in text
-    # order preserved: 1024 triple, then 2048, then 4096
-    assert text.index("Size 1024 GB/s") < text.index("Size 2048 GB/s") \
-        < text.index("Size 4096 GB/s")
-    assert rr.rows_of(str(log), "GB/s") == [(1024, 20.0), (2048, 25.0),
-                                            (4096, 40.0)]
-    # --peaks picks the best-value row and the largest row (deduped)
-    assert rr.peak_sizes(rr.rows_of(str(log), "GB/s")) == [4096]
-    assert rr.peak_sizes([(128, 50.0), (256, 10.0)]) == [128, 256]
-    assert rr.peak_sizes([]) == []
-
-
-def test_every_committed_log_carries_provenance():
-    """Round-4 invariant (VERDICT r3 missing #1): every committed artifact
-    log states the session that produced it.  A log without a
-    `# provenance:` header is either a pre-round-3 mixed-condition run or
-    an interrupted regen — neither may ship."""
-    import glob
-
-    root = os.path.join(os.path.dirname(__file__), "..", "artifacts")
-    logs = glob.glob(os.path.join(root, "**", "*.log"), recursive=True)
-    assert logs, "no artifact logs found"
-    missing = [p for p in logs
-               if "# provenance:" not in open(p).read(4096)]
-    assert not missing, f"unstamped artifact logs: {sorted(missing)}"
-
-
-def test_annotate_log_dead_columns(tmp_path):
-    """scripts/annotate_log.py: dead (nan) columns gain one in-log note
-    each, classified from the recorded warning; notes are idempotent and
-    invisible to every parser (leading '#')."""
-    import importlib.util
-
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    spec = importlib.util.spec_from_file_location(
-        "annotate_log", os.path.join(repo, "scripts", "annotate_log.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-
-    log = tmp_path / "nq8x8.log"
-    log.write_text(
-        "# provenance: test\n"
-        "WARNING: variant Pallas(QP) failed: float64\n"
-        "nelmt 128 Case: XLA(GEMM) Pallas(QP)\n"
-        "nelmt 128 norm: 1.5 nan\n"
-        "nelmt 128 DOF/s: 2.0 0\n"
-        "nelmt 512 Case: XLA(GEMM) Pallas(QP)\n"
-        "nelmt 512 norm: 3.0 nan\n"
-        "nelmt 512 DOF/s: 4.0 0\n")
-    mod.annotate(str(log))
-    lines = log.read_text().splitlines()
-    notes = [l for l in lines if l.startswith("# note:")]
-    assert len(notes) == 1
-    assert "Pallas(QP)" in notes[0] and "128,512" in notes[0]
-    assert "float64" in notes[0] or "Mosaic" in notes[0]
-    # idempotent
-    mod.annotate(str(log))
-    again = [l for l in log.read_text().splitlines()
-             if l.startswith("# note:")]
-    assert again == notes
-    # notes never match the value-line selectors
-    for n in notes:
-        assert not ("nelmt" in n and "DOF/s" in n)
-        assert not ("Size" in n and "GB/s" in n)
-
-
-def test_bench_solo_guard_never_kills_innocents(tmp_path, monkeypatch):
-    """bench._ensure_solo_chip signals ONLY a verified regen-queue group.
-
-    The headline harness kills the process group registered at
-    /tmp/tpu_bench_queue.pgid — but only after confirming the group's
-    command line really is regen_queue.sh, so a stale or recycled pgid
-    can never take down an unrelated process (scripts/regen_queue.sh's
-    solo-chip handshake).
-    """
-    import signal
-    import subprocess
-    import importlib.util
-
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    spec = importlib.util.spec_from_file_location(
-        "bench", os.path.join(repo, "bench.py"))
-    bench = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(bench)
-
-    pgid_file = tmp_path / "queue.pgid"
-    monkeypatch.setattr(bench, "_QUEUE_PGID_FILE", str(pgid_file))
-
-    # no registration file -> no-op
-    bench._ensure_solo_chip()
-
-    # a live process group that is NOT the queue must survive
-    victim = subprocess.Popen(
-        ["sleep", "30"], start_new_session=True)
-    try:
-        pgid_file.write_text(f"{victim.pid}\n")
-        bench._ensure_solo_chip()
-        assert victim.poll() is None, (
-            "guard killed a non-queue process group")
-    finally:
-        victim.send_signal(signal.SIGKILL)
-        victim.wait()
-
-    # garbage / non-integer registration -> no-op
-    pgid_file.write_text("not-a-pid\n")
-    bench._ensure_solo_chip()

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from tpu_bench.core import validate
-from tpu_bench.core.reporting import Reporter
+from gpu_bench.core import validate
+from gpu_bench.core.reporting import Reporter
 
 
 def test_norm_agreement_flags_mismatch():
@@ -25,7 +25,7 @@ def test_measure_checked_isolates_failure(capsys, cfg32):
     rep.note = notes.append
 
     def boom(*a):
-        raise RuntimeError("vmem exceeded (synthetic)")
+        raise RuntimeError("out of memory (synthetic)")
 
     t, norm = validate.measure_checked("X", boom, (1,), cfg32, rep)
     assert t == float("inf") and norm != norm
